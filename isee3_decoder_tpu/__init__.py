@@ -1,6 +1,6 @@
-"""isee3_decoder_tpu — TPU-native rebuild of the KA9Q ISEE-3/ICE telemetry chain.
+"""isee3_decoder_tpu — batched JAX rebuild of the KA9Q ISEE-3/ICE telemetry chain.
 
-A JAX/XLA/Pallas framework with the capabilities of
+A JAX/XLA framework with the capabilities of
 ``andruxa-smirnov/isee3-decoder`` (KA9Q decoder v0.11): PM carrier
 demodulation, Manchester symbol demodulation, and hybrid Fano/Viterbi
 decoding of the K=24 rate-1/2 MCQLI convolutional code — redesigned as a

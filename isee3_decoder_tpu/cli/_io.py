@@ -58,11 +58,22 @@ def status(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
 
 
-def force_cpu_if_requested() -> None:
-    if os.environ.get("ISEE3_CPU", "") == "1":
-        import jax
+def setup_jax() -> None:
+    """Prepare JAX for a CLI stage; call before any JAX computation.
 
+    ISEE3_CPU=1 forces the CPU backend.  Device memory is allocated on
+    demand instead of reserved up front (unless the user set
+    XLA_PYTHON_CLIENT_PREALLOCATE), so the three stages of a
+    ``pmdemod | symdemod | decode`` pipe can share one card.  Compiled
+    programs go to the persistent compile cache."""
+    os.environ.setdefault("XLA_PYTHON_CLIENT_PREALLOCATE", "false")
+    import jax
+
+    if os.environ.get("ISEE3_CPU", "") == "1":
         jax.config.update("jax_platforms", "cpu")
+    from isee3_decoder_tpu.backends import enable_compile_cache
+
+    enable_compile_cache()
 
 
 def run_main(main) -> None:

@@ -13,7 +13,7 @@ import math
 
 import numpy as np
 
-from isee3_decoder_tpu.cli._io import force_cpu_if_requested
+from isee3_decoder_tpu.cli._io import setup_jax
 
 
 def main(argv=None) -> int:
@@ -34,7 +34,7 @@ def main(argv=None) -> int:
     if a.symrate2 is not None:
         a.symrate = a.symrate2
 
-    force_cpu_if_requested()
+    setup_jax()
     from isee3_decoder_tpu.config import CODES, CodeSpec
     from isee3_decoder_tpu.models.legacy import bitsync_frames
     from isee3_decoder_tpu.utils.timeformat import format_hms

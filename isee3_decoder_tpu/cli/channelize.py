@@ -14,7 +14,7 @@ import sys
 
 import numpy as np
 
-from isee3_decoder_tpu.cli._io import force_cpu_if_requested, status
+from isee3_decoder_tpu.cli._io import setup_jax, status
 
 
 def main(argv=None) -> int:
@@ -32,7 +32,7 @@ def main(argv=None) -> int:
     p.add_argument("input")
     a = p.parse_args(argv)
 
-    force_cpu_if_requested()
+    setup_jax()
     import jax.numpy as jnp
 
     from isee3_decoder_tpu.ops.channelizer import channel_center, channelize

@@ -14,7 +14,7 @@ import sys
 
 import numpy as np
 
-from isee3_decoder_tpu.cli._io import force_cpu_if_requested, read_exact
+from isee3_decoder_tpu.cli._io import setup_jax, read_exact
 from isee3_decoder_tpu.config import FRAMESYMBOLS, SYNCBITS
 
 
@@ -30,7 +30,7 @@ def main(argv=None) -> int:
     p.add_argument("-m", type=int, default=100, dest="fano_maxcycles")
     p.add_argument("-d", type=int, default=None, dest="fano_delta")
     p.add_argument("--backend", default="jnp",
-                   choices=["jnp", "inplace", "fused"],
+                   choices=["jnp", "inplace"],
                    help="Viterbi kernel backend (bit-identical outputs)")
     p.add_argument("--strict-labels", action="store_true",
                    help="disable the quicklook-EC middle tier so decoder"
@@ -45,7 +45,7 @@ def main(argv=None) -> int:
                         "is identical either way)")
     a = p.parse_args(argv)
 
-    force_cpu_if_requested()
+    setup_jax()
     from isee3_decoder_tpu.models.decode import (
         DecodeConfig,
         DecodeStreamState,

@@ -13,7 +13,7 @@ import sys
 
 import numpy as np
 
-from isee3_decoder_tpu.cli._io import force_cpu_if_requested
+from isee3_decoder_tpu.cli._io import setup_jax
 
 TAIL = 0x12345  # fanotest.c:36-37
 START = 0x54321
@@ -34,7 +34,7 @@ def main(argv=None) -> int:
     p.add_argument("-z", "--zerodata", action="store_true")
     a = p.parse_args(argv)
 
-    force_cpu_if_requested()
+    setup_jax()
     import jax
     import jax.numpy as jnp
 

@@ -7,7 +7,7 @@ import sys
 
 import numpy as np
 
-from isee3_decoder_tpu.cli._io import force_cpu_if_requested
+from isee3_decoder_tpu.cli._io import setup_jax
 from isee3_decoder_tpu.utils.timeformat import format_hms
 
 
@@ -16,7 +16,7 @@ def main(argv=None) -> int:
     p.add_argument("-r", type=int, default=512, dest="bitrate")
     a = p.parse_args(argv)
 
-    force_cpu_if_requested()
+    setup_jax()
     from isee3_decoder_tpu.models.legacy import frame_bits
 
     text = sys.stdin.read()

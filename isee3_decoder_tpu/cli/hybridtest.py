@@ -12,14 +12,10 @@ import sys
 
 import numpy as np
 
-from isee3_decoder_tpu.cli._io import force_cpu_if_requested
+from isee3_decoder_tpu.cli._io import setup_jax
 
 
 def _decode(rx, nbits, code, backend):
-    if backend == "fused":
-        from isee3_decoder_tpu.ops.viterbi_pallas_fused import decode_frame_fused
-
-        return decode_frame_fused(rx, nbits, 0, 0, code)
     if backend == "inplace":
         from isee3_decoder_tpu.ops.viterbi_inplace import decode_frame_inplace
 
@@ -41,13 +37,13 @@ def main(argv=None) -> int:
     p.add_argument("-b", "--batch", type=int, default=64)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--backend", default="jnp",
-                   choices=["jnp", "inplace", "fused"],
+                   choices=["jnp", "inplace"],
                    help="Viterbi kernel backend (bit-identical outputs)")
     p.add_argument("-v", "--verbose", action="count", default=0)
     p.add_argument("-z", "--zerodata", action="store_true")
     a = p.parse_args(argv)
 
-    force_cpu_if_requested()
+    setup_jax()
     import jax
     import jax.numpy as jnp
 

@@ -8,7 +8,7 @@ import sys
 
 import numpy as np
 
-from isee3_decoder_tpu.cli._io import force_cpu_if_requested
+from isee3_decoder_tpu.cli._io import setup_jax
 
 
 def main(argv=None) -> int:
@@ -26,7 +26,7 @@ def main(argv=None) -> int:
     p.add_argument("input")
     a = p.parse_args(argv)
 
-    force_cpu_if_requested()
+    setup_jax()
     from isee3_decoder_tpu.models.legacy import icesync_frames
 
     samples = np.fromfile(a.input, "<i2")[a.begin :]

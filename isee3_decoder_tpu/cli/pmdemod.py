@@ -18,7 +18,7 @@ import sys
 import numpy as np
 
 from isee3_decoder_tpu.cli._io import (
-    force_cpu_if_requested,
+    setup_jax,
     open_input,
     read_iq_block,
     status,
@@ -40,7 +40,7 @@ def main(argv=None) -> int:
     p.add_argument("input", nargs="?", default=None)
     a = p.parse_args(argv)
 
-    force_cpu_if_requested()
+    setup_jax()
     import jax.numpy as jnp
 
     from isee3_decoder_tpu.ops.carrier import PMConfig, init_carry, pm_demod_block

@@ -9,7 +9,7 @@ import sys
 
 import numpy as np
 
-from isee3_decoder_tpu.cli._io import force_cpu_if_requested, status
+from isee3_decoder_tpu.cli._io import setup_jax, status
 
 
 def main(argv=None) -> int:
@@ -19,7 +19,7 @@ def main(argv=None) -> int:
     p.add_argument("-q", action="store_true", dest="quiet")
     a = p.parse_args(argv)
 
-    force_cpu_if_requested()
+    setup_jax()
     import jax.numpy as jnp
 
     from isee3_decoder_tpu.models.legacy import auto_phase_flip, qdecode_stream

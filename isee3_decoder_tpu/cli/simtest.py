@@ -9,7 +9,7 @@ import sys
 
 import numpy as np
 
-from isee3_decoder_tpu.cli._io import force_cpu_if_requested
+from isee3_decoder_tpu.cli._io import setup_jax
 
 
 def main(argv=None) -> int:
@@ -20,7 +20,7 @@ def main(argv=None) -> int:
     p.add_argument("--seed", type=int, default=0)
     a = p.parse_args(argv)
 
-    force_cpu_if_requested()
+    setup_jax()
     import jax
     import jax.numpy as jnp
 

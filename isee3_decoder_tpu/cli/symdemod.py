@@ -18,7 +18,7 @@ import sys
 import numpy as np
 
 from isee3_decoder_tpu.cli._io import (
-    force_cpu_if_requested,
+    setup_jax,
     read_exact,
     status,
     write_bytes,
@@ -56,7 +56,7 @@ def main(argv=None) -> int:
     p.add_argument("-q", action="store_true", dest="quiet")
     a = p.parse_args(argv)
 
-    force_cpu_if_requested()
+    setup_jax()
     import jax.numpy as jnp
 
     from isee3_decoder_tpu.models.symdemod import initial_firstsample

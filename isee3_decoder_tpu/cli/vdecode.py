@@ -9,7 +9,7 @@ import sys
 
 import numpy as np
 
-from isee3_decoder_tpu.cli._io import force_cpu_if_requested, status
+from isee3_decoder_tpu.cli._io import setup_jax, status
 
 
 def main(argv=None) -> int:
@@ -21,9 +21,9 @@ def main(argv=None) -> int:
     p.add_argument("-q", action="store_true", dest="quiet")
     p.add_argument(
         "--backend",
-        choices=("jnp", "fused"),
+        choices=("jnp", "inplace"),
         default="jnp",
-        help="Viterbi kernel: classic XLA or fused-cycle Pallas (bit-identical)",
+        help="Viterbi kernel backend (bit-identical outputs)",
     )
     a = p.parse_args(argv)
 
@@ -31,7 +31,7 @@ def main(argv=None) -> int:
         status("vdecode: decoder delay too small, using 200")
         a.decode_delay = 200
 
-    force_cpu_if_requested()
+    setup_jax()
     import jax.numpy as jnp
 
     from isee3_decoder_tpu.models.legacy import auto_phase_flip, vdecode_stream

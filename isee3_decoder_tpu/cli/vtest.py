@@ -16,14 +16,10 @@ import time
 
 import numpy as np
 
-from isee3_decoder_tpu.cli._io import force_cpu_if_requested
+from isee3_decoder_tpu.cli._io import setup_jax
 
 
 def _decode(rx, nbits, code, backend):
-    if backend == "fused":
-        from isee3_decoder_tpu.ops.viterbi_pallas_fused import decode_frame_fused
-
-        return decode_frame_fused(rx, nbits, 0, 0, code)
     if backend == "inplace":
         from isee3_decoder_tpu.ops.viterbi_inplace import decode_frame_inplace
 
@@ -42,12 +38,12 @@ def main(argv=None) -> int:
     p.add_argument("-b", "--batch", type=int, default=8)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--backend", default="jnp",
-                   choices=["jnp", "inplace", "fused"],
+                   choices=["jnp", "inplace"],
                    help="Viterbi kernel backend (bit-identical outputs)")
     p.add_argument("-v", "--verbose", action="count", default=0)
     a = p.parse_args(argv)
 
-    force_cpu_if_requested()
+    setup_jax()
     import jax
     import jax.numpy as jnp
 

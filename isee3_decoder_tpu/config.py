@@ -1,6 +1,6 @@
 """Convolutional code definitions and framing constants.
 
-TPU-native rebuild of the compile-time code table in the reference
+Batched rebuild of the compile-time code table in the reference
 (``code.h:20-175``).  The reference selects exactly one rate-1/2 code at
 compile time via preprocessor defines; here every code is a first-class
 :class:`CodeSpec` value and the active one (MCQLI-24, used by ISEE-3/ICE —

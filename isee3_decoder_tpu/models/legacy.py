@@ -98,8 +98,8 @@ def vdecode_stream(
     Note the emitted stream equals the input data delayed by
     decode_delay + K - 2 trellis steps, exactly like the reference.
 
-    backend: "jnp" (classic kernel) or "fused" (fused-cycle Pallas
-    kernels feeding the rotating-layout circular tape) — bit-identical.
+    backend: "jnp" (classic kernel) or "inplace" (rotating-layout
+    kernel on its circular tape) — bit-identical.
     """
     if symbols.ndim == 1:
         symbols = symbols[None, :]
@@ -113,47 +113,33 @@ def vdecode_stream(
     # memory bounded at (chunk + delay) planes so arbitrarily long
     # streams fit (the role of the reference's circular decision buffer,
     # vdecode.c:94).
+    if backend not in ("jnp", "inplace"):
+        raise ValueError(f"backend must be 'jnp' or 'inplace', got {backend!r}")
     bits_parts = []
-    if backend == "fused":
+    chunk = 4096
+    tape_len = min(nbits, chunk) + decode_delay
+    if backend == "inplace":
         from isee3_decoder_tpu.ops import viterbi_inplace as vip
-        from isee3_decoder_tpu.ops.viterbi_pallas_fused import stream_update_fused
 
-        interpret = jax.default_backend() != "tpu"
-        w = code.k - 1
-        chunk = max((4096 // w) * w, w)  # cycle-aligned chunk
-        # tape: a multiple of the chunk covering skip + chunk + delay
-        tape_len = chunk * (1 + -(-(decode_delay + w) // chunk))
         st = vip.stream_create(tape_len, B, code, 0)
-        done_bits = 0
-        while done_bits < nbits:
-            n = min(chunk, nbits - done_bits)
-            npad = -(-n // w) * w  # erasure-pad to whole cycles
-            block = np.full((B, 2 * npad), 128, np.uint8)
-            block[:, : 2 * n] = syms[:, 2 * done_bits : 2 * (done_bits + n)]
-            st = stream_update_fused(st, jnp.asarray(block), code, interpret=interpret)
-            lo = max(decode_delay - done_bits, 0)
-            if n - lo > 0:
-                out = vip.stream_decodebits(
-                    st, decode_delay, n - lo, code, skip=npad - n
-                )
-                bits_parts.append(np.asarray(out))
-            done_bits += n
     else:
-        chunk = 4096
-        st = viterbi.create(min(nbits, chunk) + decode_delay, B, code, 0)
-        done_bits = 0
-        while done_bits < nbits:
-            n = min(chunk, nbits - done_bits)
-            st = viterbi.update_blk(
-                st, jnp.asarray(syms[:, 2 * done_bits : 2 * (done_bits + n)]), code
-            )
-            # all end-times whose full `delay` lookback is on the tape
-            lo = decode_delay if done_bits == 0 else 0
+        st = viterbi.create(tape_len, B, code, 0)
+    done_bits = 0
+    while done_bits < nbits:
+        n = min(chunk, nbits - done_bits)
+        part = jnp.asarray(syms[:, 2 * done_bits : 2 * (done_bits + n)])
+        # all end-times whose full `delay` lookback is on the tape
+        lo = decode_delay if done_bits == 0 else 0
+        if backend == "inplace":
+            st = vip.stream_update(st, part, code)
+            out = vip.stream_decodebits(st, decode_delay, n - lo, code)
+        else:
+            st = viterbi.update_blk(st, part, code)
             out = viterbi.streaming_decodebits_window(
                 st, decode_delay, n - lo, code
             )
-            bits_parts.append(np.asarray(out))
-            done_bits += n
+        bits_parts.append(np.asarray(out))
+        done_bits += n
     bits = (
         np.concatenate(bits_parts, axis=1)
         if bits_parts

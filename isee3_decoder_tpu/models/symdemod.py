@@ -4,7 +4,7 @@ The reference's main loop (symdemod.c:96-195) processes one `window`
 seconds of baseband per iteration: full timing search, optional clock
 hill-climb, then the real demodulation with gain = 100/sqrt(maxenergy).
 
-TPU-native design: the whole loop is one jitted ``lax.scan`` over windows
+Batched design: the whole loop is one jitted ``lax.scan`` over windows
 — the prefix sum of the entire block is computed once, each window is
 just a set of gathers at carry-dependent edges, and the carry is the
 per-channel ``firstsample`` timing phase.  Clock tracking (-t) is a
@@ -80,10 +80,9 @@ def symdemod_scan_csum(
     firstsample0: jax.Array | int | None = None,
 ) -> tuple[jax.Array, SymWindowOut]:
     """symdemod_scan against a precomputed (B, >=L) int32 exclusive
-    prefix sum of the baseband (e.g. the one-pass Pallas kernel,
-    ops/prefix_pallas.py).  The caller must guarantee every edge the last
-    window reads lies strictly inside csum (see
-    models/pipeline.demod_to_symbols for the static slack check)."""
+    prefix sum of the baseband.  The caller must guarantee every edge the
+    last window reads lies strictly inside csum (symdemod_scan pads the
+    samples for this)."""
     B = csum.shape[0]
     nsym = cfg.nsymbols
     if firstsample0 is None:

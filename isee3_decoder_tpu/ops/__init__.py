@@ -2,14 +2,11 @@ from isee3_decoder_tpu.ops import (  # noqa: F401 — re-exported modules
     carrier,
     channelizer,
     fano,
-    fano_pallas,
     reductions,
     symbols,
     syncword,
     viterbi,
     viterbi_inplace,
-    viterbi_pallas,
-    viterbi_pallas_fused,
 )
 from isee3_decoder_tpu.ops.encode import (
     bits_to_bytes,

@@ -6,7 +6,7 @@ FFT-sized block — optional Doppler chirp de-rotation, FFT carrier search
 Quinn's second-estimator sub-bin interpolation, two-pass spin-down with
 C/N0 estimation, and emission of the Q (data) axis as int16.
 
-TPU-native design: one batched, jittable function processes a whole
+Batched design: one batched, jittable function processes a whole
 ``(channels, fftsize)`` block; the carrier loop state (search center,
 C/N0) is an explicit carry pytree, and a ``lax.scan`` strings blocks
 together (models/pmdemod.py).  The reference's iterative complex
@@ -40,17 +40,6 @@ class PMConfig:
     # windowed matmul-DFT search when every channel is locked (skips the
     # full FFT); False forces the reference's always-FFT behavior
     fast_locked_search: bool = True
-    #: locked-path search engine for raw int16 blocks: "auto" picks the
-    #: Pallas raw-ingestion DFT kernel (ops/carrier_pallas.py) on TPU
-    #: when shapes allow, else the XLA einsum; "xla" forces the einsum;
-    #: "pallas_interpret" forces the kernel in interpreter mode (tests).
-    search_backend: str = "auto"
-    #: full-passband (unlocked) spectrum engine: "auto" uses the
-    #: two-stage Cooley-Tukey matmul DFT on TPU (XLA's batched FFT is
-    #: ~8x slower there at production shapes — the MXU form computes the
-    #: same spectrum to f32 rounding); "fft" forces jnp.fft.fft;
-    #: "matmul" forces the matmul form (tests).  float64 always FFTs.
-    unlocked_search: str = "auto"
 
     @property
     def fftsize(self) -> int:
@@ -151,57 +140,6 @@ def _search_window(
     return first, last
 
 
-def _matmul_spectrum_capable(cfg: PMConfig, n: int) -> bool:
-    """Static gate for the two-stage matmul DFT full spectrum."""
-    if cfg.unlocked_search == "fft" or cfg.dtype != jnp.float32:
-        return False
-    if cfg.unlocked_search == "auto" and jax.default_backend() != "tpu":
-        return False
-    nhi = n // 256
-    return n % 256 == 0 and nhi >= 2 and nhi <= 2048 and 256 * n < 2**31
-
-
-def full_spectrum(iq: jax.Array, cfg: PMConfig) -> jax.Array:
-    """(B, n) complex → (B, n) complex full DFT spectrum for the
-    unlocked carrier search (pmdemod.c:253).
-
-    On TPU the batched 2^16-point FFT is ~8x slower than two 256-ish
-    matmuls on the MXU, so the fast path computes the same transform by
-    one-level Cooley-Tukey: with t = 256·h + l and f = nhi·a + q,
-
-        X[f] = Σ_l e^{-2πi l a/256} · e^{-2πi l q/n} · Σ_h x[h,l] e^{-2πi h q/nhi}
-
-    i.e. a (nhi, nhi) DFT matmul over h, a twiddle, and a (256, 256) DFT
-    matmul over l.  All twiddle phases are exact int32 products (gated).
-    Values match jnp.fft.fft to f32 matmul rounding; float64 golden runs
-    keep the FFT.
-    """
-    n = iq.shape[-1]
-    if not _matmul_spectrum_capable(cfg, n):
-        return jnp.fft.fft(iq, axis=-1)
-    B = iq.shape[0]
-    nhi = n // 256
-
-    def cexp(num: np.ndarray, den: int) -> jax.Array:
-        return jnp.asarray(
-            np.exp((-2j * np.pi / den) * (num % den).astype(np.float32)),
-            jnp.complex64,
-        )
-
-    h = np.arange(nhi, dtype=np.int64)
-    l = np.arange(256, dtype=np.int64)
-    q = h
-    a = l
-    d1 = cexp(h[:, None] * q[None, :], nhi)  # (nhi, nhi)
-    tw = cexp(q[:, None] * l[None, :], n)  # (nhi, 256)
-    d2 = cexp(l[:, None] * a[None, :], 256)  # (256, 256)
-
-    x3 = iq.astype(jnp.complex64).reshape(B, nhi, 256)
-    g = jnp.einsum("bhl,hq->bql", x3, d1)
-    x = jnp.einsum("bql,la->bqa", g * tw[None, :, :], d2)  # f = nhi·a + q
-    return jnp.swapaxes(x, 1, 2).reshape(B, n)
-
-
 def find_carrier(
     spectrum: jax.Array, carry: PMCarry, cfg: PMConfig
 ) -> tuple[jax.Array, jax.Array]:
@@ -296,7 +234,23 @@ def _fast_search_ok(carry: PMCarry, cfg: PMConfig) -> jax.Array:
 def find_carrier_windowed(
     iq: jax.Array, carry: PMCarry, cfg: PMConfig
 ) -> tuple[jax.Array, jax.Array]:
-    """Locked-path carrier search evaluating ONLY the K window bins.
+    """Locked-path carrier search evaluating ONLY the K window bins
+    (windowed_bins), then the reference's masked peak + Quinn step.
+    Callers must guard with _fast_search_ok (all channels locked,
+    positive non-wrapping windows).
+
+    Returns (carrier_freq_hz, peak_bin) like find_carrier.
+    """
+    first, last = _search_window(carry.search_center, carry.cn0, cfg)
+    first1 = first - 1  # evaluated bins: first-1 .. first+K-2
+    S = windowed_bins(iq, first1, _window_bins(cfg), cfg)
+    return _windowed_peak_from_s(S, first, last, first1, cfg)
+
+
+def windowed_bins(
+    iq: jax.Array, first1: jax.Array, K: int, cfg: PMConfig
+) -> jax.Array:
+    """(B, n) IQ → (B, K) spectrum bins S[b, k] = X_b[first1_b + k].
 
     Instead of the full n-point FFT (the reference recomputes it every
     block — pmdemod.c:253 — even though the locked search then looks at
@@ -306,22 +260,15 @@ def find_carrier_windowed(
         X[f] = Σ_h Σ_l x[h,l] · e^{-2πi h (f mod n/256)/(n/256)}
                              · e^{-2πi l f / n}
 
-    The h-contraction is one small batched matmul on the MXU and the
-    per-channel window start folds into the two twiddle factors (exact
-    integer phase arithmetic), so no (B, n) mix buffer and no (n, K) DFT
-    matrix ever hits HBM.  Bin values match the FFT's to f32 rounding;
-    callers must guard with _fast_search_ok (all channels locked,
-    positive non-wrapping windows).
-
-    Returns (carrier_freq_hz, peak_bin) like find_carrier.
+    The h-contraction is one small batched matmul and the per-channel
+    window start folds into the two twiddle factors (exact integer phase
+    arithmetic), so no (B, n) mix buffer and no (n, K) DFT matrix is ever
+    stored.  Both contractions run at HIGHEST precision: a float32
+    matmul may otherwise run in TF32 (~3 significant digits), and a
+    wrong peak bin moves the whole carrier loop.
     """
     B, n = iq.shape
-    K = _window_bins(cfg)
     nhi = n // 256
-
-    first, last = _search_window(carry.search_center, carry.cn0, cfg)
-    first1 = first - 1  # evaluated bins: first-1 .. first+K-2
-
     kk = jnp.arange(K, dtype=jnp.int32)
     h = jnp.arange(nhi, dtype=jnp.int32)
     tl = jnp.arange(256, dtype=jnp.int32)
@@ -341,9 +288,9 @@ def find_carrier_windowed(
 
     x3 = iq.astype(cfg.cdtype).reshape(B, nhi, 256)
     hib = mixh[:, :, None] * hi0[None, :, :]  # (B, nhi, K)
-    A = jnp.einsum("bht,bhk->btk", x3, hib)
-    S = jnp.einsum("btk,bt,tk->bk", A, mixl, lo0)  # (B, K) spectrum bins
-    return _windowed_peak_from_s(S, first, last, first1, cfg)
+    hp = jax.lax.Precision.HIGHEST
+    A = jnp.einsum("bht,bhk->btk", x3, hib, precision=hp)
+    return jnp.einsum("btk,bt,tk->bk", A, mixl, lo0, precision=hp)
 
 
 def _windowed_peak_from_s(
@@ -372,30 +319,6 @@ def _windowed_peak_from_s(
     return freq, peak
 
 
-def find_carrier_windowed_raw(
-    packed: jax.Array,
-    carry: PMCarry,
-    cfg: PMConfig,
-    flip: bool = False,
-    interpret: bool = False,
-) -> tuple[jax.Array, jax.Array]:
-    """find_carrier_windowed evaluated by the Pallas raw-ingestion DFT
-    kernel (ops/carrier_pallas.py): identical math, but the int16 IQ
-    words stream into the MXU without a complex64 round-trip through HBM.
-    Bin values agree with the einsum path to f32 accumulation order."""
-    from isee3_decoder_tpu.ops import carrier_pallas
-
-    n = packed.shape[1]
-    K = _window_bins(cfg)
-    kp = -(-K // 128) * 128
-    first, last = _search_window(carry.search_center, carry.cn0, cfg)
-    first1 = first - 1
-    S = carrier_pallas.windowed_dft_raw(
-        packed, first1, n, kp, flip=flip, interpret=interpret
-    )
-    return _windowed_peak_from_s(S, first, last, first1, cfg)
-
-
 def _lo_ramp(carrier_freq: jax.Array, n: int, cfg: PMConfig) -> jax.Array:
     """(B,) Hz → (B, n) complex LO ``exp(-2πi f t / fs)``.
 
@@ -412,8 +335,6 @@ def _lo_ramp(carrier_freq: jax.Array, n: int, cfg: PMConfig) -> jax.Array:
         i = jnp.arange(n, dtype=jnp.int32)
         cyc = jnp.mod(c[:, None] * i.astype(cfg.dtype)[None, :], 1.0)
         return jnp.exp((-2j * np.pi) * cyc).astype(cfg.cdtype)
-    # (an outer product of 512 coarse/fine rotators was measured SLOWER
-    # on v5e — the op is bandwidth-bound, exp throughput is free)
     i = jnp.arange(n, dtype=jnp.int32)
     ihi = (i // 256).astype(cfg.dtype)
     ilo = (i % 256).astype(cfg.dtype)
@@ -478,137 +399,6 @@ def _moments_cn0(spun: jax.Array, cfg: PMConfig):
     return dc, amp, unit, cn0
 
 
-def spin_down_raw(
-    raw: jax.Array, carrier_freq: jax.Array, cfg: PMConfig, flip: bool = False
-) -> tuple[jax.Array, jax.Array, jax.Array]:
-    """spin_down + int16 emission with the complex IQ never stored:
-    (B, 2n) raw int16 → (baseband int16, carrier amp, cn0_db).
-
-    Two fused streams over the raw words: (1) mix + five-moment C/N0
-    reduction; (2) mix + rotate + emit.  An optimization barrier keeps
-    XLA from CSE-ing the int16→complex conversion into one materialized
-    complex64 buffer (which would cost 8 bytes/sample of HBM round-trip
-    — the whole point of this path is to avoid that).  Math and output
-    are bit-identical to spin_down's f32 branch: same expressions in the
-    same order, only the (elementwise) producers are re-evaluated.
-    Requires cfg.dtype == float32.
-    """
-    n = raw.shape[-1] // 2
-    iq1 = iq_from_interleaved(raw, flip)
-    lo1 = _lo_ramp(carrier_freq, n, cfg)
-    _, amp, unit, cn0 = _moments_cn0(iq1 * lo1, cfg)
-
-    raw2 = jax.lax.optimization_barrier(raw)
-    freq2 = jax.lax.optimization_barrier(carrier_freq)
-    iq2 = iq_from_interleaved(raw2, flip)
-    lo2 = _lo_ramp(freq2, n, cfg)
-    rotated = (iq2 * lo2) * unit[:, None]
-    scaled = rotated.imag * np.sqrt(0.5)
-    baseband = jnp.trunc(scaled).astype(jnp.int16)
-    return baseband, amp, cn0
-
-
-def _raw_fast_capable(cfg: PMConfig, B: int, n: int) -> bool:
-    """Static gate for the raw-ingestion fast block step."""
-    from isee3_decoder_tpu.ops import carrier_pallas
-
-    if cfg.search_backend == "xla" or not cfg.fast_locked_search:
-        return False
-    if cfg.search_backend == "auto" and jax.default_backend() != "tpu":
-        return False
-    return (
-        # Doppler de-chirp is folded into the fully-fused kernels
-        # (pm_locked_fused / spin_down_fused); the partially-fused
-        # combination (windowed_dft_raw + XLA spin_down_raw) has no
-        # chirp fold, so a chirping downlink requires spin_supports
-        (cfg.doppler_rate == 0.0 or carrier_pallas.spin_supports(B, n))
-        and cfg.dtype == jnp.float32
-        and _fast_search_capable(cfg)
-        and carrier_pallas.supports(B, n)
-    )
-
-
-@functools.partial(jax.jit, static_argnames=("cfg", "flip"))
-def pm_demod_block_raw(
-    carry: PMCarry,
-    raw: jax.Array,
-    cfg: PMConfig = PMConfig(),
-    flip: bool = False,
-) -> tuple[PMCarry, PMBlockOut]:
-    """pm_demod_block over a (B, 2·fftsize) raw int16 block with the
-    complex IQ kept out of HBM.  Locked path: ONE Pallas kernel does the
-    windowed DFT search, peak + Quinn, spin-down, and int16 emission from
-    a single HBM read of the raw words (pm_locked_fused).  Unlocked path
-    (rare): full FFT search on a converted block + one-read fused
-    spin-down.  Callers must pass the _raw_fast_capable gate."""
-    from isee3_decoder_tpu.ops import carrier_pallas
-
-    interpret = (
-        cfg.search_backend == "pallas_interpret"
-        or jax.default_backend() != "tpu"
-    )
-    B, n = raw.shape[0], raw.shape[1] // 2
-    fused_spin = carrier_pallas.spin_supports(B, n)
-    # de-chirp phase coefficient in cycles/sample² (static) — folded
-    # into the fused kernels' mix angle (pmdemod.c:232-244)
-    dop = cfg.doppler_rate / (cfg.samprate * cfg.samprate)
-
-    def unlocked_fn(r):
-        iq = doppler_chirp(iq_from_interleaved(r, flip), cfg)
-        freq = find_carrier(full_spectrum(iq, cfg), carry, cfg)[0].astype(
-            jnp.float32
-        )
-        if fused_spin:
-            bb, amp, cn0 = carrier_pallas.spin_down_fused(
-                r, freq, cfg.samprate, flip, interpret, dop=dop
-            )
-        else:
-            bb, amp, cn0 = spin_down_raw(r, freq, cfg, flip)
-        return freq, bb, amp, cn0
-
-    if fused_spin:
-        first, last = _search_window(carry.search_center, carry.cn0, cfg)
-        kp = -(-_window_bins(cfg) // 128) * 128
-
-        def locked_fn(r):
-            bb, freq, amp, cn0 = carrier_pallas.pm_locked_fused(
-                carrier_pallas.pack_raw(r),
-                first - 1,
-                last - first,
-                n,
-                kp,
-                cfg.samprate,
-                cfg.actual_binsize,
-                flip,
-                interpret,
-                dop=dop,
-            )
-            return freq, bb, amp, cn0
-
-    else:
-
-        def locked_fn(r):
-            freq = find_carrier_windowed_raw(
-                carrier_pallas.pack_raw(r), carry, cfg, flip, interpret
-            )[0]
-            bb, amp, cn0 = spin_down_raw(r, freq, cfg, flip)
-            return freq, bb, amp, cn0
-
-    freq, baseband, amp, cn0 = jax.lax.cond(
-        _fast_search_ok(carry, cfg), locked_fn, unlocked_fn, raw
-    )
-
-    locked = cn0 > cfg.cn0_threshold
-    new_center = jnp.where(locked, freq.astype(cfg.dtype), carry.search_center)
-    out = PMBlockOut(
-        baseband=baseband,
-        carrier_freq=freq.astype(cfg.dtype),
-        cn0=cn0.astype(cfg.dtype),
-        locked=locked,
-    )
-    return PMCarry(search_center=new_center, cn0=cn0.astype(cfg.dtype)), out
-
-
 @functools.partial(jax.jit, static_argnames=("cfg",))
 def pm_demod_block(
     carry: PMCarry, iq: jax.Array, cfg: PMConfig = PMConfig()
@@ -621,11 +411,12 @@ def pm_demod_block(
         freq = jax.lax.cond(
             _fast_search_ok(carry, cfg),
             lambda x: find_carrier_windowed(x, carry, cfg)[0],
-            lambda x: find_carrier(full_spectrum(x, cfg), carry, cfg)[0],
+            lambda x: find_carrier(jnp.fft.fft(x, axis=-1), carry, cfg)[0],
             iq,
         )
     else:
-        freq, _ = find_carrier(full_spectrum(iq, cfg), carry, cfg)
+        # full-passband FFT search (pmdemod.c:253)
+        freq, _ = find_carrier(jnp.fft.fft(iq, axis=-1), carry, cfg)
     rotated, amp, cn0 = spin_down(iq, freq, cfg)
 
     locked = cn0 > cfg.cn0_threshold
@@ -656,131 +447,18 @@ def pm_demod_scan(
     disk (pmdemod.c:206-230) — → outputs stacked over T.  This is the
     streaming outer loop of pmdemod.c:204.
 
-    Feeding raw int16 halves the HBM read vs a pre-converted complex64
+    Feeding raw int16 halves the device-memory read vs a pre-converted complex64
     stream (4 bytes/sample instead of 8); the int→complex conversion
     happens per block inside the scan, where it fuses into the first
-    consumers.  When the raw fast path applies (_raw_fast_capable), the
-    complex IQ never exists in HBM at all: the Pallas DFT kernel searches
-    the packed words and the spin-down/emission streams fuse their own
-    conversions (pm_demod_block_raw)."""
+    consumers."""
     raw = not jnp.issubdtype(iq_blocks.dtype, jnp.complexfloating)
-    B = iq_blocks.shape[0]
-    n = iq_blocks.shape[-1] // 2
-    raw_fast = raw and _raw_fast_capable(cfg, B, n)
 
     def step(c, blk):
-        if raw_fast:
-            return pm_demod_block_raw(c, blk, cfg, flip)
         if raw:
             blk = iq_from_interleaved(blk, flip)
-        c, out = pm_demod_block(c, blk, cfg)
-        return c, out
+        return pm_demod_block(c, blk, cfg)
 
     return jax.lax.scan(step, carry, jnp.swapaxes(iq_blocks, 0, 1))
-
-
-def _scan_fused_capable(cfg: PMConfig, B: int, n: int, T: int) -> bool:
-    """Static gate for the one-dispatch pm scan + csum kernel."""
-    from isee3_decoder_tpu.ops import carrier_pallas, prefix_pallas
-
-    return (
-        T >= 2
-        and cfg.doppler_rate == 0.0  # scan kernel has no chirp fold
-        and _raw_fast_capable(cfg, B, n)
-        and carrier_pallas.spin_supports(B, n)
-        and prefix_pallas.supports(B, n)
-    )
-
-
-class PMScanStats(NamedTuple):
-    """Per-block pm status in scan layout (baseband lives in the csum)."""
-
-    carrier_freq: jax.Array  # (T, B) Hz
-    cn0: jax.Array  # (T, B) dB-Hz
-    locked: jax.Array  # (T, B) bool
-
-
-@functools.partial(jax.jit, static_argnames=("cfg", "flip"))
-def pm_demod_scan_csum(
-    carry: PMCarry,
-    raw_blocks: jax.Array,
-    cfg: PMConfig = PMConfig(),
-    flip: bool = False,
-) -> tuple[PMCarry, jax.Array, PMScanStats, jax.Array]:
-    """pm_demod_scan fused into ONE device kernel, emitting the exclusive
-    int32 prefix sum of the baseband in (B, T·n) layout — the symdemod
-    front-end's exact input (ops/symbols.py) — instead of the baseband.
-
-    Block 0 runs the full cold-start step (pm_demod_block_raw, including
-    the full-passband FFT search when unlocked); blocks 1..T-1 run the
-    locked windowed path inside a single Pallas kernel whose VMEM scratch
-    carries the carrier/lock state and the running csum
-    (carrier_pallas.pm_scan_locked_fused).  If any block/channel fails
-    the locked-path preconditions (carrier._fast_search_ok per block),
-    the whole call falls back in-jit to the reference-faithful block scan
-    + prefix-sum kernel — so results always match pm_demod_scan +
-    prefix_sum_blocks up to the documented 1-LSB trig-ulp tolerance of
-    the fused kernels (bit-exact fallback).
-
-    Returns (carry', csum (B, T·n) int32, PMScanStats, totals (B,) int32
-    inclusive sum of all baseband samples — the last baseband sample is
-    totals - csum[:, -1]).  Callers must pass _scan_fused_capable.
-    """
-    from isee3_decoder_tpu.ops import carrier_pallas, prefix_pallas
-
-    B, T = raw_blocks.shape[0], raw_blocks.shape[1]
-    n = raw_blocks.shape[2] // 2
-    interpret = (
-        cfg.search_backend == "pallas_interpret"
-        or jax.default_backend() != "tpu"
-    )
-
-    carry1, out0 = pm_demod_block_raw(carry, raw_blocks[:, 0], cfg, flip)
-    init = jnp.stack(
-        [
-            jnp.zeros_like(out0.cn0, jnp.float32),  # amp: not in PMBlockOut
-            out0.cn0.astype(jnp.float32),
-            out0.carrier_freq.astype(jnp.float32),
-            carry1.search_center.astype(jnp.float32),
-        ],
-        axis=1,
-    )
-    csum_f, stat, tots_f = carrier_pallas.pm_scan_locked_fused(
-        carrier_pallas.pack_raw(raw_blocks),
-        out0.baseband,
-        init,
-        cfg.samprate,
-        cfg.actual_binsize,
-        cfg.search_width,
-        cfg.cn0_threshold,
-        _window_bins(cfg),
-        flip,
-        interpret,
-    )
-    ok = jnp.all(stat[:, 1:, 3] > 0)
-
-    def fast(_):
-        freq = jnp.swapaxes(stat[:, :, 2], 0, 1).astype(cfg.dtype)
-        cn0 = jnp.swapaxes(stat[:, :, 1], 0, 1).astype(cfg.dtype)
-        c = PMCarry(
-            search_center=stat[:, T - 1, 5].astype(cfg.dtype),
-            cn0=stat[:, T - 1, 1].astype(cfg.dtype),
-        )
-        return c, csum_f, freq, cn0, tots_f
-
-    def fallback(_):
-        c, out = pm_demod_scan(carry, raw_blocks, cfg, flip)
-        csum = prefix_pallas.prefix_sum_blocks(
-            out.baseband, interpret=interpret
-        )
-        tots = csum[:, -1] + out.baseband[T - 1, :, n - 1].astype(jnp.int32)
-        return c, csum, out.carrier_freq, out.cn0, tots
-
-    c, csum, freq, cn0, tots = jax.lax.cond(ok, fast, fallback, None)
-    stats = PMScanStats(
-        carrier_freq=freq, cn0=cn0, locked=cn0 > cfg.cn0_threshold
-    )
-    return c, csum, stats, tots
 
 
 def iq_from_interleaved(raw: jax.Array, flip: bool = False) -> jax.Array:

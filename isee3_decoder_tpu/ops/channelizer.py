@@ -3,10 +3,9 @@
 The reference processes exactly one downlink per run (its carrier found
 inside a single 250 ksps passband).  Scaling to the 100+ channel target
 needs a front-end that splits a wideband capture into per-channel
-basebands — the classic critically-sampled polyphase filterbank,
-which is ideal TPU work: the polyphase filtering is a batched matmul
-against the prototype-filter taps (MXU) and the channel transform is a
-batched FFT.
+basebands — the classic critically-sampled polyphase filterbank:
+the polyphase filtering is P tap-weighted frame sums and the channel
+transform is a batched FFT.
 
 Channel k (k = 0..M-1) is centered at frequency k·fs_out (negative
 frequencies alias as usual), with output rate fs_in / M.  Outputs feed
@@ -48,7 +47,7 @@ def _pfb_frames(x: jax.Array, hb: jax.Array, nchan: int) -> jax.Array:
 
     Windowed frames: y[m] = sum_p x[m+p] * hb[p] (per branch), as P
     static shifted slices — a gather of (B, nout, P, M) would copy the
-    capture P-fold through HBM before the reduce.
+    capture P-fold through device memory before the reduce.
     """
     B, L = x.shape
     P = hb.shape[0]

@@ -4,7 +4,7 @@ Capability parity with ``encode.c:17-35``: data bytes are consumed
 MSB-first, two symbols (POLY1 then POLY2, each optionally inverted) are
 produced per data bit, and the final K-bit encoder state is returned.
 
-The reference is a sequential shift register.  The TPU-native formulation
+The reference is a sequential shift register.  The batched formulation
 observes that each output symbol is a binary correlation of the last K
 input bits with the generator taps, so a whole frame (and a whole batch of
 frames) encodes as K shifted XOR-accumulations — pure elementwise VPU work

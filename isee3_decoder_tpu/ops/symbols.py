@@ -6,11 +6,11 @@ integrate-and-dump matched filter with fractional samples-per-symbol
 symbol-phase search over ±half a symbol, and low-speed subcarrier modes
 with N clocks of a 1024 Hz subcarrier per symbol.
 
-TPU-native design: the reference integrates sample-by-sample with an
+Batched design: the reference integrates sample-by-sample with an
 incremental per-offset update trick (symdemod.c:260-335, O(1) per offset).
 Here a single prefix sum over the block turns every integration segment
 into two gathers, so *all* symbols × *all* timing offsets evaluate as one
-batched gather + reduction — flat, regular work for the VPU.
+batched gather + reduction — flat, regular work.
 
 Integer exactness: segment sums are differences of an int32 prefix sum.
 Two's-complement wraparound in the cumsum cancels in the differences, so
@@ -82,8 +82,8 @@ def prefix_sum(samples: jax.Array, pad_to: int | None = None) -> jax.Array:
 
     Two-level: cumsum inside 2048-sample tiles plus an exclusive cumsum
     of tile totals — XLA's flat cumsum over a multi-megasample axis makes
-    several full HBM passes; the tiled form streams the data ~once
-    (measured ~15% faster at bench shapes on v5e).  Identical values
+    several full passes over device memory; the tiled form streams the
+    data ~once.  Identical values
     (int32 addition is associative mod 2^32).
 
     ``pad_to`` (>= L) zero-extends the *samples* before summing, which is
@@ -144,8 +144,8 @@ def integrate_from_csum(
     Deliberately an elementwise gather: the edge table is only
     2·c·nsymbols+1 ≈ 2k entries per channel, so the gather is tiny.  A
     gather-free variant (parity-static edge tables + per-channel
-    dynamic_slice base, mirroring the timesearch trick) was measured
-    SLOWER on v5e — the base slice materializes ~the whole window per
+    dynamic_slice base, mirroring the timesearch trick) reads more: the
+    base slice materializes ~the whole window per
     channel (~256 MB traffic at 128 ch) and both parity tables must be
     evaluated, whereas the gather it replaces reads only the 2k edges.
     The timesearch won from that trick because its gather was ~245×
@@ -175,7 +175,7 @@ def _framing_plan(rel: np.ndarray, noffsets: int) -> dict | None:
     in-frame offset ``d_j = rel_j − s·m``, and ``d`` changes slowly
     (the fractional drift of the symbol clock) — so runs of equal ``d``
     become a handful of *static contiguous block slices*, eliminating
-    the 16M-element gather that dominates symdemod on TPU.
+    the 16M-element gather that would dominate symdemod.
 
     Returns None when no small ``k`` keeps the slice count and frame
     blow-up manageable (e.g. huge-offset subcarrier modes) — callers
@@ -269,8 +269,8 @@ def _symbol_group_plan(
 # Headroom on the widened offset axis for per-channel start spread: the
 # channel-shared base slice plus this many extra evaluated offsets lets
 # every channel extract its own ±half sweep without a per-channel
-# dynamic slice (vmap'ed dynamic_slice gathers run ~2x slower than one
-# scalar-start slice on v5e, and the widened evaluation fuses for free).
+# dynamic slice (a vmap'ed dynamic_slice is a gather; the widened
+# evaluation fuses into the same pass).
 TRACK_DELTA = 384
 
 
@@ -290,7 +290,7 @@ def _grouped_esum(base, W, nsymbols, symbolclocks, groups):
     every group through static slices of base (see _symbol_group_plan).
     Offset o's integrator for symbol m reads base[s·i + c_j + o] — the
     whole weighted sum, square, and symbol reduction fuse into one pass
-    over base (no window buffer in HBM)."""
+    over base (no window buffer in device memory)."""
     B = base.shape[0]
     ffloat = jnp.float64 if jax.config.jax_enable_x64 else jnp.float32
     w = _integrator_weights(symbolclocks)

@@ -1,6 +1,6 @@
 """Viterbi decoder for rate-1/2 convolutional codes (K up to 24+).
 
-TPU-native rebuild of the reference's flagship kernel
+Batched rebuild of the reference's flagship kernel
 (``viterbi224_sse2.c`` / ``viterbi224_port.c``): a 2**(K-1)-state
 add-compare-select over soft offset-binary symbols with packed survivor
 decisions and a serial chainback.
@@ -34,7 +34,7 @@ Design (vs the reference):
   reference itself).
 
 Batch axis: every function takes/returns a leading batch dimension so
-many channels/frames decode in lockstep — the TPU replacement for the
+many channels/frames decode in lockstep — the batched replacement for the
 reference's single-stream kernel (SURVEY.md §2.5).
 """
 
@@ -108,7 +108,7 @@ def create(
     """Allocate decision tape + metrics (create_viterbi224, sse2.c:56-80).
 
     dtype: metric dtype.  int16 matches the SSE2 kernel's storage and
-    halves HBM traffic on TPU; the per-step renormalization keeps values
+    halves metric traffic; the per-step renormalization keeps values
     far from saturation so decisions are identical to int32.
     """
     nstates = code.nstates

@@ -1,8 +1,8 @@
-"""In-place (rotating-layout) Viterbi ACS — the fast TPU formulation.
+"""In-place (rotating-layout) Viterbi ACS.
 
 The standard butterfly (ops/viterbi.py) interleaves survivors into new
-state order every step — on TPU that is a lane-granularity relayout that
-dominates runtime.  This module removes *all* data movement with a
+state order every step — a permutation of the whole metric array that
+can dominate runtime.  This module removes *all* data movement with a
 rotating layout, the trellis analogue of an in-place FFT:
 
 Keep metrics in *position space*, where the position of state ``s`` after
@@ -49,8 +49,7 @@ from isee3_decoder_tpu.ops import viterbi as vit
 
 
 def _parity32(x):
-    """Elementwise parity by XOR folding (no population_count — absent on
-    some TPU backends)."""
+    """Elementwise parity by XOR folding."""
     x = x ^ (x >> 16)
     x = x ^ (x >> 8)
     x = x ^ (x >> 4)
@@ -364,7 +363,7 @@ def stream_decodebits(
     nw = state.decisions.shape[2]
     # One flat word gather per traceback step: indexing the tape as
     # decisions[slot] would materialize whole (B, n//32) planes per
-    # offset lane (plane-sized HBM traffic × count lanes × delay steps);
+    # offset lane (plane-sized traffic × count lanes × delay steps);
     # flat (count*B,) gathers keep each step's traffic to a few words.
     flat = state.decisions.reshape(-1)
     bidx = jnp.arange(B, dtype=jnp.int32)[None, :]

@@ -4,7 +4,7 @@ The per-channel receive chain has no cross-channel data flow, so channel
 parallelism is pure data parallelism: place the ``(channels, time)``
 arrays with a ``ch``-sharded NamedSharding and jit the existing batched
 stage functions — XLA partitions every op along the batch dimension with
-zero collectives (the TPU replacement for running one UNIX pipeline per
+zero collectives (the replacement for running one UNIX pipeline per
 channel).
 """
 

@@ -1,7 +1,7 @@
 """Time-axis (sequence-parallel) sharding of the demod path.
 
 SURVEY.md §2.5/§5.7: the reference handles unbounded streams with a
-sliding window in one process; the TPU-native equivalent shards the
+sliding window in one process; the batched equivalent shards the
 *time axis* of a long recording across devices, giving each shard an
 overlap-save halo of leading samples so its windows see the same data
 the sequential pipeline would.

@@ -1,8 +1,7 @@
 """On-device telemetry signal synthesis.
 
-The host↔device data path can be orders of magnitude slower than the
-chip (especially through tunneled/virtualized runtimes), so benchmarks
-and large-scale tests synthesize IQ *on the device*: only the frame
+Benchmarks and large-scale tests synthesize IQ *on the device*, so the
+host↔device path stays out of what they measure: only the frame
 bytes (a few KB) are uploaded, and the encode → Manchester → PM chain
 runs as jitted jnp ops.
 """

@@ -12,17 +12,25 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
+import threading
 from pathlib import Path
 
 import numpy as np
 
 _LIB = None
 _TRIED = False
+_LOAD_LOCK = threading.Lock()
 
 _NATIVE_DIR = Path(__file__).resolve().parents[2] / "native"
 
 
 def _load():
+    # callers in other threads wait for the first one's on-demand build
+    with _LOAD_LOCK:
+        return _load_locked()
+
+
+def _load_locked():
     global _LIB, _TRIED
     if _TRIED:
         return _LIB

@@ -5,10 +5,8 @@ getrusage-style wall/CPU timing around decode calls (vtest224.c:115-120),
 bits-per-second reporting, and Fano cycle accounting — plus optional
 jax.profiler trace capture for XLA-level inspection.
 
-The ``sync`` helper exists because asynchronous dispatch (and some
-tunneled runtimes where block_until_ready is unreliable) makes naive
-wall timing meaningless: it forces a scalar readback, the one universal
-synchronization point.
+The ``sync`` helper exists because asynchronous dispatch makes naive
+wall timing meaningless: it blocks until x is computed.
 """
 
 from __future__ import annotations
@@ -18,14 +16,12 @@ import time
 from dataclasses import dataclass, field
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 
 
-def sync(x) -> float:
-    """Force execution and return a host scalar derived from x."""
-    leaf = jax.tree_util.tree_leaves(x)[0]
-    return float(jnp.asarray(leaf).ravel()[0])
+def sync(x):
+    """Block until every array in x is computed; returns x."""
+    return jax.block_until_ready(x)
 
 
 @dataclass

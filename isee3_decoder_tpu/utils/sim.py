@@ -5,7 +5,7 @@ for the two transmit symbols (``setup_channel``, sim.c:17-28) and samples
 by binary search against ``random()`` (``simulate``, sim.c:31-51), plus a
 direct Gaussian alternative (``addnoise``, sim.c:150-158).
 
-TPU-native differences: sampling is a vectorized ``searchsorted`` against
+Batched differences: sampling is a vectorized ``searchsorted`` against
 the same CDF driven by ``jax.random`` — so runs are *reproducible* from a
 PRNG key, unlike the reference's time()-seeded ``random()``
 (vtest224.c:57-58).

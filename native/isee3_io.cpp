@@ -1,4 +1,4 @@
-// Native stream-IO runtime for the TPU receive chain.
+// Native stream-IO runtime for the receive chain.
 //
 // Role: the host-side data plane the reference implements in C
 // (pmdemod.c:204-230 fread loops, symdemod.c:101-126 sliding buffer,

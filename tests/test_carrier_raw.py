@@ -1,10 +1,11 @@
-"""Raw-ingestion pm fast path: Pallas DFT search + fused spin-down."""
+"""Raw int16 ingestion: the carrier demod and the chain fed the
+recording format directly against the same samples as complex IQ."""
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
 from isee3_decoder_tpu.ops import carrier
-from isee3_decoder_tpu.ops.carrier_pallas import pack_raw
 from tests.test_pmdemod import pm_signal
 
 
@@ -13,278 +14,105 @@ def _raw_int16(iq: np.ndarray) -> np.ndarray:
     return np.trunc(np.clip(ri, -32767, 32767)).astype(np.int16)
 
 
-def _setup(cfg, nch=8):
-    rng = np.random.default_rng(9)
-    data = rng.integers(0, 2, 128) * 2 - 1
-    freqs = 2000.0 + 137.0 * np.arange(nch)
+def _complex(raw: np.ndarray) -> np.ndarray:
+    q = raw.astype(np.float32).reshape(raw.shape[0], -1, 2)
+    return (q[..., 0] + 1j * q[..., 1]).astype(np.complex64)
+
+
+def _signals(cfg, T, nch=8, seed=11, chirp=None):
     n = cfg.fftsize
-    iq = np.stack(
-        [
-            pm_signal(n, cfg.samprate, f, 1.1, data, 32.0, amp=12000)
-            + rng.normal(0, 300, n)
-            + 1j * rng.normal(0, 300, n)
-            for f in freqs
-        ]
-    )
-    raw = _raw_int16(iq)
-    iq_q = raw.astype(np.float32).reshape(nch, n, 2)
-    iq_c = (iq_q[..., 0] + 1j * iq_q[..., 1]).astype(np.complex64)
-    carry = carrier.PMCarry(
-        search_center=jnp.asarray(freqs, jnp.float32),
-        cn0=jnp.full((nch,), 60.0, jnp.float32),
-    )
-    return raw, iq_c, carry, freqs
-
-
-def test_windowed_dft_raw_matches_einsum():
-    """The Pallas raw-ingestion search agrees with the XLA einsum path:
-    same peak bins, Quinn frequency to f32 matmul-order tolerance."""
-    cfg = carrier.PMConfig(samprate=32768.0, binsize=4.0, search_width=100.0)
-    raw, iq_c, carry, freqs = _setup(cfg)
-    f_x, pk_x = carrier.find_carrier_windowed(jnp.asarray(iq_c), carry, cfg)
-    f_p, pk_p = carrier.find_carrier_windowed_raw(
-        pack_raw(jnp.asarray(raw)), carry, cfg, interpret=True
-    )
-    np.testing.assert_array_equal(np.asarray(pk_p), np.asarray(pk_x))
-    np.testing.assert_allclose(np.asarray(f_p), np.asarray(f_x), atol=5e-3)
-
-
-def test_spin_down_raw_bit_identical():
-    """Given the same carrier frequency, the fused two-stream raw
-    spin-down emits bit-identical baseband/amp/cn0 to spin_down."""
-    cfg = carrier.PMConfig(samprate=32768.0, binsize=4.0, search_width=100.0)
-    raw, iq_c, carry, freqs = _setup(cfg)
-    f = jnp.asarray(freqs, jnp.float32) + 0.125
-    rot, amp, cn0 = carrier.spin_down(jnp.asarray(iq_c), f, cfg)
-    bb_ref = jnp.trunc(rot.imag * np.sqrt(0.5)).astype(jnp.int16)
-    bb, amp2, cn02 = carrier.spin_down_raw(jnp.asarray(raw), f, cfg)
-    np.testing.assert_array_equal(np.asarray(bb), np.asarray(bb_ref))
-    np.testing.assert_array_equal(np.asarray(amp2), np.asarray(amp))
-    np.testing.assert_array_equal(np.asarray(cn02), np.asarray(cn0))
-
-
-def test_spin_down_fused_matches_spin_down():
-    """The one-read Pallas spin-down agrees with spin_down: amp/cn0 to
-    f32 sum-order tolerance, baseband within 1 LSB (moment ulps move
-    trunc boundaries)."""
-    from isee3_decoder_tpu.ops import carrier_pallas
-
-    cfg = carrier.PMConfig(samprate=32768.0, binsize=4.0, search_width=100.0)
-    raw, iq_c, carry, freqs = _setup(cfg)
-    assert carrier_pallas.spin_supports(raw.shape[0], raw.shape[1] // 2)
-    f = jnp.asarray(freqs, jnp.float32) + 0.125
-    rot, amp, cn0 = carrier.spin_down(jnp.asarray(iq_c), f, cfg)
-    bb_ref = jnp.trunc(rot.imag * np.sqrt(0.5)).astype(jnp.int16)
-    bb, amp2, cn02 = carrier_pallas.spin_down_fused(
-        jnp.asarray(raw), f, cfg.samprate, interpret=True
-    )
-    np.testing.assert_allclose(np.asarray(amp2), np.asarray(amp), rtol=1e-5)
-    np.testing.assert_allclose(np.asarray(cn02), np.asarray(cn0), atol=1e-2)
-    diff = np.abs(
-        np.asarray(bb, np.int32) - np.asarray(bb_ref, np.int32)
-    )
-    assert diff.max() <= 1, diff.max()
-
-
-def test_pm_demod_block_raw_matches_block():
-    """Full raw block step ≈ classic block step on the converted block:
-    identical lock decisions, frequencies to matmul-order tolerance,
-    baseband within 1 LSB (freq ulp differences move trunc boundaries)."""
-    cfg = carrier.PMConfig(
-        samprate=32768.0,
-        binsize=4.0,
-        search_width=100.0,
-        search_backend="pallas_interpret",
-    )
-    raw, iq_c, carry, freqs = _setup(cfg)
-    c_ref, out_ref = carrier.pm_demod_block(carry, jnp.asarray(iq_c), cfg)
-    c_raw, out_raw = carrier.pm_demod_block_raw(carry, jnp.asarray(raw), cfg)
-    np.testing.assert_array_equal(
-        np.asarray(out_raw.locked), np.asarray(out_ref.locked)
-    )
-    np.testing.assert_allclose(
-        np.asarray(out_raw.carrier_freq),
-        np.asarray(out_ref.carrier_freq),
-        atol=5e-3,
-    )
-    np.testing.assert_allclose(
-        np.asarray(out_raw.cn0), np.asarray(out_ref.cn0), atol=1e-2
-    )
-    diff = np.abs(
-        np.asarray(out_raw.baseband, np.int32)
-        - np.asarray(out_ref.baseband, np.int32)
-    )
-    assert diff.max() <= 1, diff.max()
-
-
-def test_pm_demod_scan_raw_fast_end_to_end():
-    """pm_demod_scan with the raw fast path decodes the same data axis as
-    the classic path over multiple blocks (lock carry across blocks)."""
-    cfg = carrier.PMConfig(
-        samprate=32768.0,
-        binsize=4.0,
-        search_width=100.0,
-        search_backend="pallas_interpret",
-    )
-    n = cfg.fftsize
-    nch, T = 8, 3
-    rng = np.random.default_rng(11)
+    rng = np.random.default_rng(seed)
     data = rng.integers(0, 2, 256) * 2 - 1
     freqs = 2000.0 + 137.0 * np.arange(nch)
-    iq = np.stack(
-        [
-            pm_signal(T * n, cfg.samprate, f, 1.1, data, 32.0, amp=12000)
-            + rng.normal(0, 300, T * n)
-            + 1j * rng.normal(0, 300, T * n)
-            for f in freqs
-        ]
-    )
-    raw = _raw_int16(iq)  # (nch, 2*T*n)
-    raw_blocks = raw.reshape(nch, T, 2 * n)
-    assert carrier._raw_fast_capable(cfg, nch, n)
+    iq = np.stack([
+        pm_signal(T * n, cfg.samprate, f, 1.1, data, 32.0, amp=12000)
+        + rng.normal(0, 300, T * n) + 1j * rng.normal(0, 300, T * n)
+        for f in freqs
+    ])
+    if chirp is not None:
+        iq = iq * chirp
+    return _raw_int16(iq), freqs
+
+
+@pytest.mark.parametrize("doppler_rate", [0.0, 50.0])
+def test_raw_scan_matches_complex_scan(doppler_rate):
+    """pm_demod_scan over raw int16 blocks equals the scan over the same
+    samples as complex64, bit for bit, over several blocks (lock carry)
+    and with a Doppler de-chirp."""
+    cfg = carrier.PMConfig(samprate=32768.0, binsize=4.0, search_width=100.0,
+                           doppler_rate=doppler_rate)
+    n, nch, T = cfg.fftsize, 8, 3
+    raw, _ = _signals(cfg, T, nch)
     carry = carrier.init_carry(nch, cfg)
-    c1, out1 = carrier.pm_demod_scan(carry, jnp.asarray(raw_blocks), cfg)
-
-    cfg_x = carrier.PMConfig(
-        samprate=32768.0, binsize=4.0, search_width=100.0, search_backend="xla"
-    )
-    c2, out2 = carrier.pm_demod_scan(carry, jnp.asarray(raw_blocks), cfg_x)
-    np.testing.assert_array_equal(
-        np.asarray(out1.locked), np.asarray(out2.locked)
-    )
-    np.testing.assert_allclose(
-        np.asarray(out1.carrier_freq), np.asarray(out2.carrier_freq), atol=5e-3
-    )
-    diff = np.abs(
-        np.asarray(out1.baseband, np.int32) - np.asarray(out2.baseband, np.int32)
-    )
-    assert diff.max() <= 1, diff.max()
+    c1, o1 = carrier.pm_demod_scan(
+        carry, jnp.asarray(raw.reshape(nch, T, 2 * n)), cfg)
+    c2, o2 = carrier.pm_demod_scan(
+        carry, jnp.asarray(_complex(raw).reshape(nch, T, n)), cfg)
+    assert np.asarray(o1.locked)[-1].all(), "carriers did not lock"
+    for a, b in zip((*o1, *c1), (*o2, *c2)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
-def test_pm_demod_scan_csum_matches_block_scan():
-    """The one-dispatch whole-scan kernel (pm_demod_scan_csum, now the
-    non-default `pm_backend="fused_scan"` path) must keep matching the
-    per-block scan + separate prefix sum: same lock/freq stats, same
-    exclusive csum up to the documented 1-LSB trig-ulp tolerance of the
-    fused kernels (a baseband LSB shifts every later csum entry by 1)."""
-    from isee3_decoder_tpu.ops import prefix_pallas
-
-    cfg = carrier.PMConfig(
-        samprate=32768.0,
-        binsize=4.0,
-        search_width=100.0,
-        search_backend="pallas_interpret",
-    )
-    n = cfg.fftsize
-    nch, T = 8, 3
-    rng = np.random.default_rng(12)
-    data = rng.integers(0, 2, 256) * 2 - 1
-    freqs = 2000.0 + 137.0 * np.arange(nch)
-    iq = np.stack(
-        [
-            pm_signal(T * n, cfg.samprate, f, 1.1, data, 32.0, amp=12000)
-            + rng.normal(0, 300, T * n)
-            + 1j * rng.normal(0, 300, T * n)
-            for f in freqs
-        ]
-    )
-    raw = _raw_int16(iq).reshape(nch, T, 2 * n)
-    assert carrier._scan_fused_capable(cfg, nch, n, T)
+def test_raw_flip_swaps_iq():
+    """-f (flip) reads Q,I pairs: the same as swapping the axes of the
+    complex samples."""
+    cfg = carrier.PMConfig(samprate=32768.0, binsize=4.0, search_width=100.0)
+    n, nch = cfg.fftsize, 4
+    raw, _ = _signals(cfg, 1, nch, seed=5)
+    z = _complex(raw)
     carry = carrier.init_carry(nch, cfg)
-
-    c1, csum, stats, tots = carrier.pm_demod_scan_csum(
-        carry, jnp.asarray(raw), cfg
-    )
-    c2, out2 = carrier.pm_demod_scan(carry, jnp.asarray(raw), cfg)
-    csum2 = prefix_pallas.prefix_sum_blocks(out2.baseband, interpret=True)
-    tots2 = csum2[:, -1] + out2.baseband[T - 1, :, n - 1].astype(np.int32)
-
-    np.testing.assert_array_equal(
-        np.asarray(stats.locked), np.asarray(out2.locked)
-    )
-    np.testing.assert_allclose(
-        np.asarray(stats.carrier_freq),
-        np.asarray(out2.carrier_freq),
-        atol=5e-3,
-    )
-    np.testing.assert_allclose(
-        np.asarray(c1.search_center), np.asarray(c2.search_center), atol=5e-3
-    )
-    # each baseband sample may differ by 1 LSB (trig ulps move the trunc
-    # boundary); the exclusive csum accumulates those, so compare via the
-    # per-sample differences it encodes
-    bb1 = np.diff(
-        np.concatenate(
-            [np.asarray(csum), np.asarray(tots)[:, None]], axis=1
-        ),
-        axis=1,
-    )
-    bb2 = np.asarray(
-        jnp.swapaxes(out2.baseband, 0, 1).reshape(nch, T * n), np.int32
-    )
-    assert np.abs(bb1 - bb2).max() <= 1
+    _, o1 = carrier.pm_demod_scan(
+        carry, jnp.asarray(raw.reshape(nch, 1, 2 * n)), cfg, flip=True)
+    swapped = (z.imag + 1j * z.real).astype(np.complex64)
+    _, o2 = carrier.pm_demod_scan(
+        carry, jnp.asarray(swapped.reshape(nch, 1, n)), cfg)
+    np.testing.assert_array_equal(np.asarray(o1.baseband), np.asarray(o2.baseband))
+    np.testing.assert_array_equal(np.asarray(o1.locked), np.asarray(o2.locked))
+    # the two conversions fuse differently: float32 sum-order ulps
+    for a, b in ((o1.carrier_freq, o2.carrier_freq), (o1.cn0, o2.cn0)):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-5)
 
 
-def test_pm_demod_block_raw_doppler_matches_block():
-    """Doppler no longer kicks the chirping-downlink configuration off
-    the fast path (VERDICT r3 weak #6): with doppler_rate set, the fused
-    kernels fold the de-chirp into the mix angle and the raw block step
-    still matches the classic (doppler_chirp + spin_down) block step."""
-    cfg = carrier.PMConfig(
-        samprate=32768.0,
-        binsize=4.0,
-        search_width=100.0,
-        search_backend="pallas_interpret",
-        doppler_rate=50.0,
-    )
-    n = cfg.fftsize
-    nch = 8
-    rng = np.random.default_rng(21)
-    data = rng.integers(0, 2, 128) * 2 - 1
-    freqs = 2000.0 + 137.0 * np.arange(nch)
-    # genuinely chirping carriers: the quadratic phase the de-chirp
-    # (pmdemod.c:232-244, per-block restart) exactly removes
-    i = np.arange(n, dtype=np.float64)
-    chirp = np.exp(
-        2j * np.pi * (cfg.doppler_rate / cfg.samprate**2) * (i * (i + 1) / 2)
-    )
-    iq = np.stack(
-        [
-            (
-                pm_signal(n, cfg.samprate, f, 1.1, data, 32.0, amp=12000)
-                + rng.normal(0, 300, n)
-                + 1j * rng.normal(0, 300, n)
-            )
-            * chirp
-            for f in freqs
-        ]
-    )
-    raw = _raw_int16(iq)
-    iq_q = raw.astype(np.float32).reshape(nch, n, 2)
-    iq_c = (iq_q[..., 0] + 1j * iq_q[..., 1]).astype(np.complex64)
-    carry = carrier.PMCarry(
-        search_center=jnp.asarray(freqs, jnp.float32),
-        cn0=jnp.full((nch,), 60.0, jnp.float32),
-    )
+def test_windowed_bins_match_float64_fft():
+    """The windowed carrier DFT's bins equal a float64 FFT's to float32
+    rounding (HIGHEST-precision contractions), peak bins exactly."""
+    cfg = carrier.PMConfig(samprate=32768.0, binsize=4.0, search_width=100.0)
+    n, nch = cfg.fftsize, 8
+    raw, freqs = _signals(cfg, 1, nch, seed=9)
+    z = _complex(raw)
+    K = carrier._window_bins(cfg)
+    first1 = np.trunc((freqs - cfg.search_width) / cfg.actual_binsize).astype(
+        np.int32) - 1
+    S = np.asarray(carrier.windowed_bins(jnp.asarray(z), jnp.asarray(first1),
+                                         K, cfg))
+    X = np.fft.fft(z.astype(np.complex128), axis=-1)
+    ref = np.take_along_axis(X, first1[:, None] + np.arange(K)[None, :], axis=1)
+    rel = np.abs(S - ref).max(1) / np.abs(ref).max(1)
+    assert rel.max() < 1e-5, rel.max()
+    np.testing.assert_array_equal(np.abs(S).argmax(1), np.abs(ref).argmax(1))
 
-    assert carrier._raw_fast_capable(cfg, nch, n), "doppler left the fast path"
 
-    c_ref, out_ref = carrier.pm_demod_block(carry, jnp.asarray(iq_c), cfg)
-    c_raw, out_raw = carrier.pm_demod_block_raw(carry, jnp.asarray(raw), cfg)
-    assert np.asarray(out_ref.locked).all(), "reference path failed to lock"
-    np.testing.assert_array_equal(
-        np.asarray(out_raw.locked), np.asarray(out_ref.locked)
+def test_demod_raw_matches_complex_input():
+    """demod_to_symbols fed the int16 recording equals the chain fed the
+    same samples as complex64: soft symbols, baseband and C/N0."""
+    from isee3_decoder_tpu.models.pipeline import PipelineConfig, demod_to_symbols
+    from isee3_decoder_tpu.ops.symbols import SymConfig
+    from isee3_decoder_tpu.utils import testsignal
+
+    rng = np.random.default_rng(2)
+    frames = testsignal.random_frames(rng, 3)
+    samprate, symrate = 32768.0, 1024.0
+    iq = testsignal.synthesize_iq(
+        frames, samprate=samprate, symrate=symrate, carrier=5000.0,
+        noise_std=800.0, lead_symbols=40, rng=rng,
     )
-    np.testing.assert_allclose(
-        np.asarray(out_raw.carrier_freq),
-        np.asarray(out_ref.carrier_freq),
-        atol=5e-3,
+    raw = np.broadcast_to(testsignal.iq_to_int16(iq), (2, 2 * iq.size))
+    cfg = PipelineConfig(
+        pm=carrier.PMConfig(samprate=samprate, binsize=8.0, search_width=100.0),
+        sym=SymConfig(samprate=samprate, symrate=symrate),
     )
-    np.testing.assert_allclose(
-        np.asarray(out_raw.cn0), np.asarray(out_ref.cn0), atol=2e-2
-    )
-    diff = np.abs(
-        np.asarray(out_raw.baseband, np.int32)
-        - np.asarray(out_ref.baseband, np.int32)
-    )
-    assert diff.max() <= 1, diff.max()
+    out_r = demod_to_symbols(jnp.asarray(raw), cfg)
+    out_c = demod_to_symbols(jnp.asarray(_complex(np.ascontiguousarray(raw))), cfg)
+    assert out_r[0].size > 0
+    for a, b in zip(out_r, out_c):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))

@@ -97,13 +97,12 @@ def test_bitsync_frames():
     assert matched >= 1
 
 
-def test_fused_stream_state_checkpoint_roundtrip(tmp_path):
-    """The fused-kernel streaming decoder's circular-tape state survives
+def test_inplace_stream_state_checkpoint_roundtrip(tmp_path):
+    """The rotating-layout streaming decoder's circular-tape state survives
     a save/restore mid-stream: the resumed decoder emits the same
     fixed-delay bits as an uninterrupted run."""
     from isee3_decoder_tpu.config import CodeSpec
     from isee3_decoder_tpu.ops import viterbi_inplace as vip
-    from isee3_decoder_tpu.ops.viterbi_pallas_fused import stream_update_fused
 
     K15 = CodeSpec("TESTK15", 0o46321, 0o51445, 15, 0, 1)
     w = K15.k - 1
@@ -118,9 +117,8 @@ def test_fused_stream_state_checkpoint_roundtrip(tmp_path):
         done = start
         while done < nbits:
             n = min(chunk, nbits - done)
-            st = stream_update_fused(
-                st, jnp.asarray(soft[2 * done : 2 * (done + n)]), K15,
-                interpret=True,
+            st = vip.stream_update(
+                st, jnp.asarray(soft[2 * done : 2 * (done + n)]), K15
             )
             lo = max(delay - done, 0)
             if n - lo > 0:
@@ -135,10 +133,8 @@ def test_fused_stream_state_checkpoint_roundtrip(tmp_path):
     # interrupted after the first chunk, checkpointed, resumed
     st1, outs1 = run(vip.stream_create(2 * chunk, 1, K15, 0), 0)
     st_half = vip.stream_create(2 * chunk, 1, K15, 0)
-    st_half = stream_update_fused(
-        st_half, jnp.asarray(soft[: 2 * chunk]), K15, interpret=True
-    )
-    path = tmp_path / "fused_stream.npz"
+    st_half = vip.stream_update(st_half, jnp.asarray(soft[: 2 * chunk]), K15)
+    path = tmp_path / "inplace_stream.npz"
     save_pytree(path, st_half)
     restored = restore_pytree(path, vip.stream_create(2 * chunk, 1, K15, 0))
     restored = type(st_half)(**{

@@ -61,11 +61,10 @@ def test_vdecode_stream_small():
     assert int(res.symbol_errors[0]) == 0
 
 
-def test_vdecode_stream_fused_backend_matches():
-    """vdecode's fused-kernel streaming backend is bit-identical to the
-    classic kernel.  K=15 (the smallest code the fused kernels' column
-    packing supports); the 140-bit stream sits far below the cycle-
-    aligned chunk, exercising the erasure-padded final-chunk path."""
+def test_vdecode_stream_inplace_backend_matches():
+    """vdecode's rotating-layout streaming backend is bit-identical to
+    the classic kernel.  K=15 (the rotating layout packs 128-state rows);
+    the 140-bit stream is shorter than one chunk."""
     rng = np.random.default_rng(12)
     from isee3_decoder_tpu.config import CodeSpec
     from isee3_decoder_tpu.ops import encode_bits
@@ -81,7 +80,7 @@ def test_vdecode_stream_fused_backend_matches():
         255,
     ).astype(np.uint8)
     res = legacy.vdecode_stream(jnp.asarray(soft), delay, code)
-    res_f = legacy.vdecode_stream(jnp.asarray(soft), delay, code, backend="fused")
+    res_f = legacy.vdecode_stream(jnp.asarray(soft), delay, code, backend="inplace")
     np.testing.assert_array_equal(res_f.bits, res.bits)
     np.testing.assert_array_equal(res_f.symbol_errors, res.symbol_errors)
 

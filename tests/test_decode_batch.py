@@ -326,3 +326,12 @@ def test_qlec_device_block_matches_batch_path():
     np.testing.assert_array_equal(rec_d.data, rec_b.data)
     np.testing.assert_array_equal(rec_d.decoder, rec_b.decoder)
     np.testing.assert_array_equal(rec_d.good, rec_b.good)
+
+
+def test_viterbi_backend_is_checked():
+    """Only the XLA Viterbi kernels can be selected."""
+    from isee3_decoder_tpu.models.decode import DecodeConfig, _viterbi_decode
+
+    cfg = DecodeConfig(viterbi_backend="fused")
+    with pytest.raises(ValueError, match="viterbi_backend"):
+        _viterbi_decode(jnp.zeros((1, 2 * 1024), jnp.uint8), cfg)

@@ -3,6 +3,7 @@
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 
 from isee3_decoder_tpu.config import MCQLI24, CodeSpec, parity
 from isee3_decoder_tpu.ops import encode_bits
@@ -283,3 +284,61 @@ def test_fano_wide_j60_roundtrip():
     res = fano_decode(jnp.asarray(soft), jnp.asarray(mettab), nbits, 0, tail, J60)
     assert int(res.goodbits[0]) == nbits
     np.testing.assert_array_equal(np.asarray(res.bits[0]), bits)
+
+
+def _noisy_batch(rng, code, nbits, B, sigma, start, tail):
+    softs = []
+    for _ in range(B):
+        _, syms = make_frame(rng, code, nbits, tailbits=tail, start=start)
+        softs.append(np.clip(
+            np.round((syms.astype(np.int32) * 2 - 1) * 100
+                     + rng.normal(0, sigma, 2 * nbits)) + 128,
+            0, 255,
+        ).astype(np.uint8))
+    return np.stack(softs)
+
+
+@pytest.mark.parametrize(
+    "case, unroll",
+    [("cliff", 2), ("moderate_skip", 2), ("cliff", 1), ("cliff", 4)],
+)
+def test_packed_walk_matches_oracle(case, unroll):
+    """The packed lockstep walk against the step-by-step oracle, lane by
+    lane: at the cliff (deep pop-runs, toggles, relaxes, timeouts) and at
+    moderate noise with skip lanes that start done.  The unroll depth is
+    a pure performance knob (backends.PLATFORM_DEFAULTS): every depth
+    must walk identically."""
+    from isee3_decoder_tpu.ops.fano import _fano_decode_packed
+
+    nbits = 64
+    if case == "cliff":
+        rng = np.random.default_rng(23)
+        mettab = gen_met(100.0, 60.0, 0.5, 8.0)
+        maxcycles, sigma, B = 6, 85.0, 6
+        skip = np.zeros(B, bool)
+    else:
+        rng = np.random.default_rng(31)
+        mettab = gen_met(100.0, 47.0, 0.5, 8.0)
+        maxcycles, sigma, B = 12, 47.0, 5
+        skip = np.asarray([False, True, False, False, True])
+    params = FanoParams(delta=32, maxcycles=maxcycles, unroll=unroll)
+    softs = _noisy_batch(rng, K7, nbits, B, sigma, 0x2A, 0x15)
+    res = _fano_decode_packed(
+        jnp.asarray(softs), jnp.asarray(mettab), nbits, 0x2A, 0x15, K7,
+        params, skip=jnp.asarray(skip),
+    )
+    goods = []
+    for tr in np.nonzero(~skip)[0]:
+        want_bits, want_good, want_metric, want_cycles = oracle_fano(
+            softs[tr], nbits, mettab, params.delta, params.maxcycles,
+            0x2A, 0x15, K7,
+        )
+        assert int(res.goodbits[tr]) == want_good, f"lane {tr}"
+        assert int(res.cycles[tr]) == want_cycles, f"lane {tr}"
+        assert int(res.metric[tr]) == want_metric, f"lane {tr}"
+        np.testing.assert_array_equal(np.asarray(res.bits[tr]), want_bits)
+        goods.append(want_good)
+    if case == "cliff":
+        assert min(goods) < nbits, "no lane timed out"
+    else:
+        assert max(goods) == nbits, "no lane decoded"

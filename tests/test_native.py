@@ -101,3 +101,31 @@ def test_native_viterbi_full_k24_frame():
     )[0]
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(got, bits)
+
+
+def test_native_build_is_shared_by_threads(monkeypatch, tmp_path):
+    """Threads that ask for the library while the first caller builds it
+    wait for that build instead of seeing it unavailable."""
+    import shutil
+    import threading
+    import time
+    import types
+    from concurrent.futures import ThreadPoolExecutor
+
+    assert native.available()
+    real = native._NATIVE_DIR / "libisee3_io.so"
+    builds = []
+
+    def slow_make(*args, **kwargs):
+        builds.append(threading.get_ident())
+        time.sleep(0.3)
+        shutil.copy(real, tmp_path / "libisee3_io.so")
+
+    monkeypatch.setattr(native, "_NATIVE_DIR", tmp_path)
+    monkeypatch.setattr(native, "_TRIED", False)
+    monkeypatch.setattr(native, "_LIB", None)
+    monkeypatch.setattr(native, "subprocess", types.SimpleNamespace(run=slow_make))
+    with ThreadPoolExecutor(4) as pool:
+        got = list(pool.map(lambda _: native.available(), range(4)))
+    assert got == [True] * 4
+    assert len(builds) == 1

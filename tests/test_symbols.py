@@ -169,7 +169,7 @@ def test_integrate_edges_exact_at_large_firstsample():
     """Segment edges are nearbyint(firstsample + rel) evaluated exactly:
     deep into a capture (firstsample ~ 2e7, where float32 spacing is 2.0)
     the integrators must still match the float64 oracle, even with x64
-    disabled (the production/TPU mode)."""
+    disabled (the production mode)."""
     import jax
 
     rng = np.random.default_rng(0)

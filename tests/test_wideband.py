@@ -69,7 +69,7 @@ def test_wideband_capture_single_program_decodes():
     """2 channel slots in one capture; every frame decodes and matches.
 
     Also runs the identical bytes as PACKED int32 IQ (I low half, Q high
-    half — the TPU-layout-safe form of the interleaved int16 recording;
+    half — one word per sample of the interleaved int16 recording;
     a little-endian int16-pair file IS an int32-packed array) and
     requires bit-identical frames."""
     rec, frames, raw = _run(nchan=2, nsynth=3, ndec=1, return_raw=True)
